@@ -1,4 +1,4 @@
-"""symtensor-tpu: TPU-native symmetric tensors (JAX/XLA/Pallas).
+"""symtensor-tpu: accelerator-native symmetric tensors (JAX/XLA).
 
 A from-scratch rebuild of the capabilities of the `symtensor` reference
 library (compressed symmetric-tensor storage + symmetrized linear algebra),
@@ -11,7 +11,7 @@ from . import config as _config_module
 from .config import config
 from .config import enable_persistent_compile_cache as _enable_cc
 
-_enable_cc()  # compiled-executable disk cache; SYMTENSOR_COMPILE_CACHE=0 opts out
+_enable_cc()  # compiled-executable disk cache (see config.py)
 from .core import (
     DecompSymmetricTensor,
     DenseSymmetricTensor,

@@ -5,7 +5,7 @@ The reference's flagship format (symtensor/permcls_symtensor.py:539): one
 tensors like "c₁ on the diagonal, c₂ elsewhere" in O(#classes) memory
 (permcls_symtensor.py:79,178-193).
 
-TPU adaptation: the per-class arrays are pytree leaves ordered by the
+Accelerator adaptation: the per-class arrays are pytree leaves ordered by the
 canonical σ-class enumeration; scalar compression = a 0-d leaf, which is part
 of the static pytree structure (so jit caches one executable per compression
 pattern — SURVEY.md §7 "static-shape discipline"). Per-class value order is

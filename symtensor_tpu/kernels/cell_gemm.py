@@ -24,10 +24,10 @@ max(g) > t1), followed by the tiny epilogue  sum_cells x_{t1} x_{t2} G.
 
 Contrast with the grouped batched path (poly_eval.py), which materializes
 a (B, sum_j T_j) triangle intermediate — ~(d+2)/3-fold redundant (34x at
-d = 100) and HBM-bound: 2.25 us/input measured at the BASELINE C5 config.
-Here HBM traffic is one pass over the values plus O(B * sum_b K_b) prefix
-reads (tens of MB at C5), and every GEMM has K in the hundreds-to-
-thousands — proper MXU shapes instead of skinny T_j-contractions.
+d = 100) and memory-bound.  Here device-memory traffic is one pass over the
+values plus O(B * sum_b K_b) prefix reads (tens of MB at C5), and every
+GEMM has K in the hundreds-to-thousands — proper matrix-unit shapes
+instead of skinny T_j-contractions.
 
 Reference semantics: contract_all_indices_with_vector
 (/root/reference/symtensor/symalg.py:505-527); the implicit-symmetrization
@@ -82,7 +82,7 @@ def _cell_blocks_static(rank: int, dim: int):
     )
 
     # Greedy row blocks: grow while the triangular zero-padding stays a
-    # small fraction of the useful entries (bounds both wasted MXU FLOPs
+    # small fraction of the useful entries (bounds both wasted GEMM FLOPs
     # and the extra device copy).
     bounds = []
     ra = 0
@@ -174,8 +174,7 @@ def cell_views(A: FlatSymmetricTensor):
             NC = t1s.shape[0]
             # (NC, K): cells on the leading axis — the GEMM contracts K
             # against the (K, B) transposed weight table, and every gather
-            # in the eval is a leading-axis (row) gather, which the TPU
-            # serves at memory speed (lane-axis gathers are scalar-slow).
+            # in the eval is a leading-axis (row) gather of whole rows.
             V = (
                 vals[jnp.asarray(idx)]
                 * jnp.asarray(scale).astype(vals.dtype)
@@ -200,8 +199,8 @@ def _level_weights_batched_T(t, xsT, size: int, ct):
     """(N_size, B) EGF-weighted monomials, batch on the LANE axis.
 
     The recursion's par/mx indexing lands on the leading axis (row
-    gathers — fast on TPU; the (B, N) orientation turns them into
-    scalar-slow lane gathers, measured 78 ms at the C5 config)."""
+    gathers of whole rows; the (B, N) orientation would gather single
+    elements along the minor axis)."""
     B = xsT.shape[1]
     if size == 0:
         return jnp.ones((1, B), dtype=ct)
@@ -219,10 +218,9 @@ def _cell_eval_jitted(rank: int, dim: int):
         xsT = xs.astype(ct).T  # (d, B)
         M2T = _level_weights_batched_T(t, xsT, rank - 2, ct)  # (N2, B)
         B = xsT.shape[1]
-        # precision follows jax_default_matmul_precision: TPU's default
-        # truncates f32 matmul operands to bf16 (~1e-3 rel err); forcing
-        # HIGHEST here measured 48 ms vs 0.45 ms at the C5 config — users
-        # needing full f32 set the global precision flag instead
+        # precision follows jax_default_matmul_precision: the default may
+        # run f32 operands at reduced precision (TF32 on the GPU); users
+        # needing full f32 set the global precision flag
         prec = None
         total = jnp.zeros((B,), dtype=ct)
         for V, t1s, t2s in views:  # V: (NC, K)

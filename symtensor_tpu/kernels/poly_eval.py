@@ -15,11 +15,9 @@ collisions at j:
 where M̃ are EGF head monomials (size C(d+r−4, r−3) — e.g. 176 851 at
 rank 6 dim 100 vs 1.6e9 components), q is the head's trailing count of j,
 and c1,c2,c3 absorb the (q+1)(q+2)(q+3) factorial corrections for tails
-touching j. HBM traffic ≈ one pass over the values — the speed-of-light for
-this memory-bound op (every value is used exactly once).
-
-The jnp formulation already streams at near-HBM bandwidth through XLA; a
-Pallas variant exists for fusing the per-group loop (see pallas_poly.py).
+touching j. Device-memory traffic ≈ one pass over the values — the
+speed-of-light for this memory-bound op (every value is used exactly once).
+The jnp formulation is compiled by XLA; there is no hand-written kernel.
 """
 
 from __future__ import annotations
@@ -34,7 +32,7 @@ import numpy as np
 
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
-from ..utils.precision import batched_value_prec, value_prec
+from ..utils.precision import value_prec
 
 
 @lru_cache(maxsize=None)
@@ -63,11 +61,10 @@ def _head_weights(t, x: jnp.ndarray, rank: int):
     return w, mx, run.astype(jnp.int32)
 
 
-# Groups whose tail width is below this are stored transposed (T_j, P_j):
-# a (P_j, T_j) matrix with T_j ≪ 128 lanes wastes most of every memory tile
-# (measured 10 GB/s effective on the tail groups at rank-6 dim-100 vs
-# ~500 GB/s on wide groups), while transposed the long head axis fills the
-# lanes and only the ≤8-sublane padding is lost.
+# Groups whose tail width is below this are stored transposed (T_j, P_j),
+# so the long head axis is the minor (contiguous) one: a (P_j, T_j) matrix
+# with a short minor axis reads poorly on a tiled memory layout.  Chosen on
+# the previous accelerator; not yet re-decided for the GPU.
 _TRANSPOSE_BELOW = 128
 
 
@@ -145,8 +142,8 @@ def _barrier_view_getter(vals, r, d):
         chunk = jax.lax.slice(vals, (goff[j],), (goff[j] + Pj * Tj,))
         # Barrier: without it XLA rewrites reshape(slice(vals)) into
         # slice(reshape(vals)) whenever goff % T == 0, materializing the
-        # full value array as (n/T, T) — whose TPU tiled layout pads the
-        # lane dimension to 128 (a 29 GB allocation at rank-6 dim-100).
+        # full value array as (n/T, T) — which a tiled device layout pads
+        # many times over at rank-6 dim-100.
         chunk = jax.lax.optimization_barrier(chunk)
         return chunk.reshape(Pj, Tj)
 
@@ -156,8 +153,8 @@ def _barrier_view_getter(vals, r, d):
 def _dot1(mat, vec, contract_axis, ct):
     """mat·vec contracting one axis, accumulating in ct without upcasting
     the (possibly bf16) matrix in memory. Precision follows value_prec:
-    eager GEMVs run on the VPU either way, but under vmap these become
-    MXU GEMMs where DEFAULT would truncate f32 operands to bf16."""
+    under vmap these become GEMMs, where DEFAULT precision may run f32
+    operands at reduced precision (TF32 on the GPU's tensor cores)."""
     return jax.lax.dot_general(
         mat,
         vec.astype(mat.dtype),
@@ -204,8 +201,8 @@ def _premul_static(rank: int, dim: int):
     factors as M·c1·(u_full + ρ2·u_row + ρ3·u_cell) with x-INDEPENDENT
     ratios ρ2 = c2/c1 = 1/(q+2) − 1 and ρ3 = c3/c1 (q = trailing run of j
     in the head), so ρ2/ρ3 premultiply into the stored values — the
-    u_row/u_cell GEMVs disappear, along with their HBM re-reads (the
-    strided V[:, 0] cell column is 128-lane-tile amplified on TPU).
+    u_row/u_cell GEMVs disappear, along with their re-reads of the values
+    (the strided V[:, 0] cell column reads whole memory tiles).
 
     Returns per-group (rho2, rho3) float64 arrays of length P_j."""
     hsize = rank - 3
@@ -330,12 +327,12 @@ def _views_eval_batched_premul_jitted(rank: int, dim: int):
                 V,
                 (((1,), (ax,)), ((), ())),
                 preferred_element_type=ct,
-                precision=batched_value_prec(V.dtype),
+                precision=value_prec(V.dtype),
             )  # (B, Pj)
             q = jnp.where(maxel[:Pj] == j, maxrun[:Pj], 0).astype(ct)
             w = M[:, :Pj] * (xs[:, j : j + 1] / (q + 1.0)[None, :])
             total = total + jnp.einsum(
-                "bp,bp->b", w, u, precision=batched_value_prec(ct)
+                "bp,bp->b", w, u, precision=value_prec(ct)
             )
         return float(math.factorial(rank)) * total
 
@@ -378,7 +375,7 @@ def poly_eval_flat_fast(A: FlatSymmetricTensor, x) -> jnp.ndarray:
 
 def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> jnp.ndarray:
     """Batched contraction: xs (B, d) → (B,). The per-group GEMVs become
-    GEMMs (P_j, T_j) @ (T_j, B) — MXU work at large B."""
+    GEMMs (P_j, T_j) @ (T_j, B) — matrix-unit work at large B."""
     r, d = A.rank, A.dim
     xs = jnp.asarray(xs)
     vals = A.data
@@ -388,7 +385,7 @@ def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> jnp.ndarray:
     if r == 0:
         return jnp.broadcast_to(vals[0].astype(ct), (B,))
     if r == 1:
-        return jnp.dot(xs, vals.astype(ct), precision=batched_value_prec(ct))
+        return jnp.dot(xs, vals.astype(ct), precision=value_prec(ct))
 
     t = A.tables
     ta, tb = t.tri_pairs
@@ -398,7 +395,7 @@ def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> jnp.ndarray:
 
     if r == 2:
         return 2.0 * jnp.dot(
-            tri, vals.astype(ct), precision=batched_value_prec(ct)
+            tri, vals.astype(ct), precision=value_prec(ct)
         )
 
     M, maxel, maxrun = _batched_head_weights(t, xs, r, ct)
@@ -419,7 +416,7 @@ def _eval_core_batched(get_V, tri, xs, M, maxel, maxrun, r, d, ct):
             mat,
             (((1,), (contract_axis,)), ((), ())),
             preferred_element_type=ct,
-            precision=batched_value_prec(mat.dtype),
+            precision=value_prec(mat.dtype),
         )
 
     for j in range(d):
@@ -442,7 +439,7 @@ def _eval_core_batched(get_V, tri, xs, M, maxel, maxrun, r, d, ct):
         c3 = c1 * (2.0 / ((q + 2) * (q + 3)) - 1.0 / (q + 2))[None, :]
         total = total + jnp.einsum(
             "bp,bp->b", M[:, :Pj], c1 * u_full + c2 * u_row + c3 * u_cell,
-            precision=batched_value_prec(ct),
+            precision=value_prec(ct),
         )
     return float(math.factorial(r)) * total
 
@@ -487,13 +484,10 @@ def _views_eval_batched_jitted(rank: int, dim: int):
 def poly_eval_flat_batched_fast(A: FlatSymmetricTensor, xs) -> jnp.ndarray:
     """Eager batched entry point over cached per-group views.
 
-    Routing is by on-chip measurement (rank-4 dim-100, B=1024, v5e):
-    plain grouped views 1.016 ms (f32), premultiplied views 0.882 ms at
-    bf16 storage but 1.458 ms at f32, and the cell-major prefix-GEMM
-    kernel 1.454 ms bf16 / 44.7 ms f32 (its big-K GEMMs don't pay for the
-    (B, N_{r-2}) weight-table traffic on real hardware; CPU measurements
-    said otherwise).  So: premul views for bf16 storage, plain views
-    otherwise; the cell kernel is opt-in via SYMTENSOR_BATCHED_CELL=1.
+    Routing (decided on the previous accelerator at rank-4 dim-100,
+    B=1024; not yet re-measured on the GPU): premultiplied views for bf16
+    storage, plain grouped views otherwise; the cell-major prefix-GEMM
+    kernel is opt-in via SYMTENSOR_BATCHED_CELL=1.
     Use inside jit → poly_eval_flat_batched (no view caching on tracers).
     """
     if A.rank < 3:
@@ -506,9 +500,8 @@ def poly_eval_flat_batched_fast(A: FlatSymmetricTensor, xs) -> jnp.ndarray:
     if jnp.dtype(A.dtype) == jnp.bfloat16 or (
         # reuse an existing premul view cache rather than building a
         # SECOND full-size view copy (plain + premul caches together
-        # would triple residency on big tensors): premul f32 measured
-        # 1.458 vs 1.016 ms at the C5 config — a fair trade against an
-        # extra 6.4 GB at flagship size
+        # would triple residency on big tensors — an extra 6.4 GB at
+        # flagship size)
         getattr(A, "_group_views_premul", None) is not None
         and getattr(A, "_group_views", None) is None
     ):

@@ -7,14 +7,14 @@ b in a window and every size-k child multiset j,
 
 with positions in the parent (rank k+1) gflat layout.  The generic step
 kernel services this with a 1-D element gather (the parent block has one
-row), which runs at the measured ~10-27M elements/s element-gather floor
-— 9.2e9 incidences per window at rank-6 dim-100, the dominant cost of
-the whole flagship basis change (docs/design_slab_gather.md).
+row) — 9.2e9 incidences per window at rank-6 dim-100, the dominant cost
+of the whole flagship basis change on the previous accelerator
+(docs/design_slab_gather.md).
 
 This module replaces the root pass with the gflat case decomposition
 (same case analysis as utils/slabs.py, verified in tests/test_slabs.py),
-reformulated so every read is either a contiguous slice or the fast 2-D
-axis-1 shared-index gather (measured 8.1 G elements/s):
+reformulated so every read is either a contiguous slice or the 2-D
+axis-1 shared-index gather (one index vector amortized over all rows):
 
 With child j = [head (size kh = k−3) | g | ta, tb] and insert value i:
 
@@ -41,20 +41,18 @@ With child j = [head (size kh = k−3) | g | ta, tb] and insert value i:
 Both gathers are driven by two tiny global int32 tables (≈2 MB each at
 d = 100) sliced per g; the whole window is ONE jitted program with a
 host-unrolled loop over the d child groups (static shapes per g — no
-lax.map, no large device tables, none of the big-map-operand structures
-implicated in the rank-6 TPU worker faults).
+lax.map, no large device tables).
 
 The parent arrives as PER-GROUP 2-D blocks (nhp_G, T_G), split once by
-`split_root_groups`, NOT as one flat (N_{k+1},) array: XLA's TPU layout
-assignment reacts to many `reshape(slice(param), (nh, T_G))` consumers
-by retiling the whole 1-D parameter to (N/10, 10), whose 10→128 lane
-padding is a 12.8× memory blowup — 41 GB for the 3.2 GB rank-6 dim-100
-flagship parent, an AOT compile-time OOM (bisected: 99 slice+reshapes
-trigger it, 3 don't, optimization_barrier does not help).  With 2-D
-block params every access is a natural row slice or transpose; the same
-program then compiles with temp ≈ 0.13 GB.  The split itself must dodge
-the pattern too: one program of plain 1-D slices (safe), then one
-program reshaping each piece param to 2-D.
+`split_root_groups`, NOT as one flat (N_{k+1},) array: XLA's layout
+assignment can react to many `reshape(slice(param), (nh, T_G))`
+consumers by retiling the whole 1-D parameter to (N/10, 10), which a
+tiled device layout pads many times over (seen as a compile-time OOM at
+the rank-6 dim-100 flagship on the previous accelerator;
+optimization_barrier does not help).  With 2-D block params every
+access is a natural row slice or transpose.  The split itself avoids
+the pattern too: one program of plain 1-D slices, then one program
+reshaping each piece param to 2-D.
 
 Reference semantics: symalg.contract_all_indices_with_matrix
 (/root/reference/symtensor/symalg.py:475-496); the reference has no
@@ -70,6 +68,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..utils import combinatorics as comb
+from .basis_change import _dot_operand_dtype
 
 
 @lru_cache(maxsize=None)
@@ -260,22 +259,13 @@ def root_pass_kernel(k: int, d: int, npar: int, store_dt: str, acc_dt: str,
     T0 = int(comb.tri_size(d))
     if g1 is None:
         g1 = d
-    # MXU operand dtype: when the blocks are ALREADY bf16, feeding them to
-    # the MXU as bf16 (f32 accumulation via preferred_element_type) is one
-    # pass and loses nothing — the data carries bf16 noise either way,
-    # and W's bf16 rounding (~2^-9 relative) is below it.  Casting to f32
-    # + HIGHEST forces a 6-pass decomposition: pure waste on bf16 data,
-    # and the dominant per-window cost of the rank-6 flagship (the skinny
-    # (·, n, d−g)×(d−g, npar) products run at a few % of MXU peak even
-    # single-pass).  f32 storage keeps f32 + HIGHEST (the one-pass f32
-    # rounding had cost ~1e-3 identity error, docs/benchmarks.md).
-    # TPU only: the CPU dot thunk rejects BF16×BF16=F32 (tests/oracles
-    # run the f32 route there — same math up to rounding).
-    mxu = (
-        jnp.bfloat16
-        if store == jnp.bfloat16 and jax.default_backend() != "cpu"
-        else acc
-    )
+    # When the blocks are ALREADY bf16, feeding them to the dot as bf16
+    # (f32 accumulation via preferred_element_type) loses nothing — the
+    # data carries bf16 noise either way, and W's bf16 rounding (~2^-9
+    # relative) is below it — while f32 + HIGHEST would multiply the
+    # work.  f32 storage keeps f32 + HIGHEST.  See _dot_operand_dtype for
+    # the CPU exception.
+    mxu = _dot_operand_dtype(store, acc)
     prec = None if mxu == jnp.bfloat16 else jax.lax.Precision.HIGHEST
 
     def kern(Bs, Wp, b_lo, IH, J):
@@ -322,10 +312,8 @@ def root_pass_kernel(k: int, d: int, npar: int, store_dt: str, acc_dt: str,
                     G2, Wc[g:],
                     (((2,), (0,)), ((), ())),
                     preferred_element_type=acc,
-                    # one-pass MXU rounds f32 operands to bf16 (~1e-3
-                    # identity error observed on TPU), so f32 storage
-                    # buys back accuracy with HIGHEST; bf16 storage runs
-                    # one pass (see `mxu` above)
+                    # f32 storage asks for HIGHEST so no faster algorithm
+                    # rounds its operands; bf16 storage runs as bf16
                     precision=prec,
                 )  # (nh, tl, npar)
                 if g > 0:

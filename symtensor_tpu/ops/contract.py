@@ -131,11 +131,10 @@ def _contract_vec_flat(A: FlatSymmetricTensor, x) -> jnp.ndarray:
             "(reference symalg.py:517)"
         )
     # Concrete tensors: cached premul views + ONE jitted evaluation — the
-    # headline 11.5 ms path (bench.py). The eager per-group path dispatches
-    # ~6 small programs per group (~0.5 s/call at dim 100, and ~hundreds of
-    # first-use remote compiles on a fresh machine). Traced tensors (this
-    # op under the caller's jit over A): views can't be cached on tracers,
-    # so keep the barrier-copy path. Opt-out (e.g. to avoid the one-off
+    # headline path (bench.py). The eager per-group path would dispatch
+    # ~6 small programs per group, each compiled on first use. Traced
+    # tensors (this op under the caller's jit over A): views can't be
+    # cached on tracers, so keep the barrier-copy path. Opt-out (e.g. to avoid the one-off
     # full-size premul view copy on memory-tight devices):
     # SYMTENSOR_EVAL_FAST=0.
     from ..kernels.poly_eval import poly_eval_flat, poly_eval_flat_fast
@@ -221,8 +220,8 @@ def contract_all_indices_with_vector(symtensor, x) -> jnp.ndarray:
 def contract_all_indices_with_vector_batched(symtensor, xs) -> jnp.ndarray:
     """Batched polynomial evaluation: xs (B, dim) → (B,).
 
-    Format-specialized: packed tensors use the grouped GEMM kernel (MXU
-    work at large B); decomp uses one batched einsum; other formats vmap
+    Format-specialized: packed tensors use the grouped GEMM kernel
+    (matrix-unit work at large B); decomp uses one batched einsum; other formats vmap
     the single-input path. This is the BASELINE 'jit+vmap over 1024 inputs'
     configuration as a first-class op.
     """
@@ -235,11 +234,10 @@ def contract_all_indices_with_vector_batched(symtensor, xs) -> jnp.ndarray:
             f"xs second axis {xs.shape[1]} must equal dim {A.dim}"
         )
     if A.format == "flat":
-        # Concrete tensors: cached-views grouped GEMMs (fastest measured
-        # on TPU at the C5 config; poly_eval_flat_batched_fast docstring
-        # has the routing numbers). Traced tensors (this op under the
-        # caller's jit): the barrier-copy path — views can't be cached on
-        # tracers.
+        # Concrete tensors: cached-views grouped GEMMs (routing in the
+        # poly_eval_flat_batched_fast docstring). Traced tensors (this op
+        # under the caller's jit): the barrier-copy path — views can't be
+        # cached on tracers.
         from ..kernels.poly_eval import (
             poly_eval_flat_batched,
             poly_eval_flat_batched_fast,
@@ -419,8 +417,8 @@ def contract_tensor_list(
     # ordered i with the vectorized inner path is exact).
     #
     # n == 2 is vectorized with vmap over i: the whole level is ONE
-    # compiled program (round-1 weakness: d separate recursions were
-    # compile-dominated — 25.8 s at the C4 bench size).
+    # compiled program (d separate recursions were compile-dominated at
+    # the C4 bench size).
     t_in = Af.tables
     if n_times == 2:
         ins = t_in.insert_table(A.rank - 1)  # (N_{r-1}, d)
@@ -446,8 +444,8 @@ def contract_tensor_list(
     # the contraction index with an in-place accumulator — the recursion
     # inside the body is the (vectorized) n−1 path, so the whole call
     # compiles ~n programs total instead of d^(n−2) Python recursions
-    # (round-2 weakness: the C4 config spent 25.8 s compiling d separate
-    # subtrees on first call).  The accumulator keeps peak memory at one
+    # (the C4 config otherwise compiles d separate subtrees on first
+    # call).  The accumulator keeps peak memory at one
     # output vector instead of a (d, n_out) stack.
     ins = t_in.insert_table(A.rank - 1)  # (N_{r-1}, d)
     A_parts = Af.data[ins.T]  # (d, N_{r-1})

@@ -1,15 +1,15 @@
 """Multi-device execution over a jax.sharding.Mesh.
 
 The reference is single-process (SURVEY.md §2: no distributed layer exists).
-The TPU-native scaling story for symmetric tensors is:
+The scaling story for symmetric tensors is:
 
 - **dp**: batch polynomial evaluations sharded over a data axis,
 - **tp**: the packed independent-component axis sharded over a tensor axis —
-  contractions reduce with one psum over ICI.
+  contractions reduce with one psum over the device interconnect.
 
 Everything here uses `shard_map` with explicit `jax.lax` collectives; XLA
-lowers them onto ICI. No custom transport (SURVEY.md §5 "distributed
-communication backend").
+lowers them onto the interconnect (NCCL over NVLink on GPUs). No custom
+transport (SURVEY.md §5 "distributed communication backend").
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
+from ..utils.precision import value_prec
 
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str]) -> Mesh:
@@ -66,9 +67,12 @@ def _colex_tables_padded(t, rank: int, ntp: int):
         par = jnp.concatenate([par, jnp.zeros(pad, par.dtype)])
         mx = jnp.concatenate([mx, jnp.zeros(pad, mx.dtype)])
         run = jnp.concatenate([run, jnp.ones(pad, run.dtype)])
-    # inverse colex permutation: vals_colex[c] = vals[inv[c]]
+    # inverse colex permutation: vals_colex[c] = vals[inv[c]]; padding
+    # slots point one past the end, at the zero the caller appends
     inv = jnp.argsort(t.colex_perm)
-    return levels[:-1], (par, mx, run), inv, pad
+    if pad:
+        inv = jnp.concatenate([inv, jnp.full(pad, n, inv.dtype)])
+    return levels[:-1], (par, mx, run), inv
 
 
 def poly_eval_batched_sharded(
@@ -80,11 +84,13 @@ def poly_eval_batched_sharded(
 ) -> jnp.ndarray:
     """Batched full contraction Σ A·x⊗…⊗x with the batch sharded over
     `dp_axis` and the packed independent-component axis sharded over
-    `tp_axis`; the component reduction is one psum over ICI.
+    `tp_axis`; the component reduction is one psum.
 
     Returns (B,) results, sharded over dp.
 
-    Memory note: this colex-EGF formulation replicates all prior EGF
+    Memory note: each device gathers only its tp share of the colex-ordered
+    values (from `A.data` as placed by the caller).  This colex-EGF
+    formulation replicates all prior EGF
     levels per shard — the level-(r−1) intermediate is
     (B_local, C(d+r−2, r−1)) and is NOT bounded by tp sharding (only the
     last level's table traffic and the value axis are).  For large tensors
@@ -96,7 +102,7 @@ def poly_eval_batched_sharded(
         # trivial ranks: replicate
         if r == 0:
             return jnp.broadcast_to(A.data[0], (xs.shape[0],))
-        return xs @ A.data
+        return jnp.dot(xs, A.data, precision=value_prec(A.dtype))
     ntp = mesh.shape[tp_axis]
     ndp = mesh.shape[dp_axis]
     B = xs.shape[0]
@@ -104,12 +110,12 @@ def poly_eval_batched_sharded(
         raise ValueError(f"batch {B} not divisible by dp axis ({ndp})")
 
     t = A.tables
-    prior_levels, (par, mx, run), inv, pad = _colex_tables_padded(t, r, ntp)
-    vals_colex = A.data[inv]
-    if pad:
-        vals_colex = jnp.concatenate(
-            [vals_colex, jnp.zeros(pad, vals_colex.dtype)]
-        )
+    prior_levels, (par, mx, run), inv = _colex_tables_padded(t, r, ntp)
+    # The gather writes the padded length itself.  Zero-padding its output
+    # instead (concatenate after the gather) gives O(1)-wrong gradients
+    # w.r.t. the values under jit whenever dp > 1: the partitioner
+    # mis-slices the tp-sharded cotangent of that concatenate.
+    vals_colex = jnp.concatenate([A.data, jnp.zeros(1, A.data.dtype)])[inv]
 
     def body(vals_s, par_s, mx_s, run_s, xs_s):
         # levels 1..r-1 are replicated work (size ≪ n); the big level-r
@@ -118,7 +124,13 @@ def poly_eval_batched_sharded(
         for pl, ml, rl in prior_levels:
             w = w[:, pl] * xs_s[:, ml] / rl.astype(xs_s.dtype)
         w_last = w[:, par_s] * xs_s[:, mx_s] / run_s.astype(xs_s.dtype)
-        partial_out = w_last @ vals_s.astype(xs_s.dtype)  # (B_local,)
+        # (B_local,); full f32 like the one-device path (value_prec): at
+        # DEFAULT precision the GPU may run this dot and its transpose in
+        # TF32, which put the dp×tp gradients 3e-4 off on four H100s
+        partial_out = jnp.dot(
+            w_last, vals_s.astype(xs_s.dtype),
+            precision=value_prec(xs_s.dtype),
+        )
         return jax.lax.psum(partial_out, tp_axis)
 
     out = jax.shard_map(
@@ -148,9 +160,7 @@ def shard_group_views(
     over `tp_axis`.  Every group GEMM then runs row-parallel: each device
     holds 1/n_tp of every group (≈ 1/n_tp of all values), and the final
     M̃-weighted head reduction contracts the sharded axis — XLA inserts one
-    reduce per group over ICI.  No O(n) colex tables are touched
-    (round-1 CLAUDE.md candidate: 'a grouped sharded variant would cut
-    table traffic')."""
+    reduce per group.  No O(n) colex tables are touched."""
     from ..kernels.poly_eval import (
         _grouped_static,
         _is_transposed,
@@ -190,7 +200,7 @@ def poly_eval_batched_sharded_grouped(
     This is the single-chip benchmark kernel made multi-chip by sharding
     annotations alone: the jnp body is identical; GSPMD partitions each
     (B, T_j) @ (T_j, P_j) GEMM over rows of P_j and reduces the sharded
-    head contraction over ICI.  Per-device residency: values/n_tp + the
+    head contraction.  Per-device residency: values/n_tp + the
     replicated head-monomial table (C(d+r−4, r−3) ≪ n).
 
     Pass precomputed `views` (from shard_group_views) to amortize placement
@@ -206,7 +216,8 @@ def poly_eval_batched_sharded_grouped(
         if r == 0:
             return jnp.broadcast_to(A.data[0], (xs.shape[0],))
         if r == 1:
-            return xs @ A.data.astype(xs.dtype)
+            return jnp.dot(xs, A.data.astype(xs.dtype),
+                           precision=value_prec(xs.dtype))
         from ..ops.contract import contract_all_indices_with_vector_batched
 
         return contract_all_indices_with_vector_batched(A, xs)
@@ -235,14 +246,14 @@ def tensordot_sharded(
       Compute scales with the axis; memory does not.
     - ``operands="sharded"``: the operand value axes stay SHARDED over
       `axis` — per-device residency is 1/n_axis of each operand (the
-      memory-scaling mode for operands too big for one HBM).  Each output
+      memory-scaling mode for operands too big for one device).  Each output
       block accumulates its gathers over a ring: n_axis
       ppermute-rotate + masked-local-gather steps reassemble exactly the
       values the block needs.  Communication model: each device moves the
-      full operand bytes over ICI once per LOCAL block (nblk/n_axis
-      blocks), instead of holding them resident — the classic
-      memory-for-bandwidth trade; ICI rides at link rate since transfers
-      are whole-shard ppermutes.
+      full operand bytes over the interconnect once per LOCAL block
+      (nblk/n_axis blocks), instead of holding them resident — the
+      classic memory-for-bandwidth trade; transfers are whole-shard
+      ppermutes.
 
     Semantics match ops.outer.tensordot(..., stream=True) (reference
     symalg.py:424-459, which has no distributed analog at all).

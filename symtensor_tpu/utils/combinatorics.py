@@ -11,7 +11,7 @@ implementation): σ-class label/count conventions follow
 ``Σ s_σ·γ_σ = d^r`` and ``Σ s_σ = C(d+r-1,r)`` (``symtensor/base.py:140-145``)
 are the test oracles.
 
-Layout design (new, TPU-first — no reference equivalent):
+Layout design (new, accelerator-first — no reference equivalent):
 
 **gflat layout.** Independent components of a rank-``r`` dim-``d`` symmetric
 tensor are multisets ``i1 ≤ i2 ≤ … ≤ ir``. We store them in a single packed
@@ -26,7 +26,8 @@ multiset over ``{0..j}`` in *colexicographic* order, and
 ``d - j``. This makes ``contract_all_indices_with_vector`` a sequence of ``d``
 static-shape GEMVs (one per ``j`` group) against contiguous slices of a
 triangle-monomial vector — no per-element gather tables — which is the
-speed-of-light formulation on TPU (HBM-bandwidth bound on the value stream).
+speed-of-light formulation (device-memory-bandwidth bound on the value
+stream).
 """
 
 from __future__ import annotations

@@ -1,15 +1,14 @@
 """Matmul precision policy for value-path dots.
 
-TPU's DEFAULT matmul precision truncates f32 operands to bf16 on the MXU
-(~1e-3 relative error per pass). Single-input evaluation lowers to GEMVs,
-which execute on the VPU in full f32 regardless — but under ``vmap`` or
-explicit batching the very same ``dot_general`` becomes an MXU GEMM and
-silently loses ~3 digits (measured: ``jit(vmap(contract_all_indices_with_
-vector))`` at rank-4 dim-20 hit 1e-2 relative error vs the f64 oracle while
-the eager path sat at 1e-7).
+On the GPU an f32 dot at DEFAULT precision may run on the tensor cores in
+TF32, which keeps ~10 mantissa bits (~1e-3 relative per product); on the
+CPU every precision is full f32.  Single-input evaluation lowers to GEMVs,
+but under ``vmap`` or explicit batching the very same ``dot_general``
+becomes a GEMM, where the reduced precision shows: it would give up ~3
+digits of the reference's accuracy.
 
 Policy implemented by :func:`value_prec` — keyed on the dtype the dot's
-operands actually have at the MXU:
+operands actually have:
 
 - bf16 operands: ``None`` (the operands are already bf16; DEFAULT is both
   exact-given-the-inputs and fastest — accumulation stays f32 via
@@ -20,21 +19,31 @@ operands actually have at the MXU:
 - ``SYMTENSOR_VALUE_PRECISION`` ∈ {default, high, highest} overrides
   everything (measurement/escape hatch).
 
+The explicit batched-evaluation GEMMs (``poly_eval_flat_batched*``) follow
+the same policy.  Measured on one NVIDIA H100 80GB HBM3 (700 W power
+limit) at rank-4 dim-100, B = 1024, f32 storage, normalized error
+max|Δ|/max|y| against a float64 oracle (chip_smoke.py phase 2): HIGH (TF32
+on this card) 3.64 ms warm at 1.25e-4, HIGHEST 5.14 ms at 3.0e-7, the
+3-pass ``DotAlgorithmPreset.TF32_TF32_F32_X3`` 2.87 ms at 3.0e-7 but
+245 s to compile cold against 20 s for HIGHEST, and rejected by XLA:CPU.
+HIGHEST keeps the ~1e-5 accuracy intent on every backend with one policy;
+the 3-pass preset would pay off only after ~10^5 warm calls per process
+without a warm compile cache.
+
 The reference implicitly computes everything at full NumPy f32/f64
 precision (`/root/reference/symtensor/symalg.py` is plain NumPy); matching
-its accuracy by default is part of parity. Users who want bf16 MXU speed
-opt in by *storing* bf16 (the premul-views batched route) or via the env
-knob / global flag.
+its accuracy by default is part of parity. Users who want bf16 speed opt
+in by *storing* bf16 (the premul-views batched route) or via the env knob
+/ global flag.
 
 .. caution:: **The policy is read at TRACE time and then baked into cached
    programs.** Callers are ``lru_cache``'d jitted builders keyed only on
    shape-ish arguments (rank, dim, dtype), so flipping
-   ``SYMTENSOR_VALUE_PRECISION`` or entering ``jax.default_matmul_precision``
-   *after* an op has already traced is silently ignored for that op — the
-   cached executable keeps whatever precision it was traced with.  Set the
-   env var before first use of an op (benchmarks/precision_probe.py calls
-   ``cache_clear()`` on the builders between settings for exactly this
-   reason).
+   ``SYMTENSOR_VALUE_PRECISION`` *after* an op has already traced is
+   silently ignored for that op — the cached executable keeps whatever
+   precision it was traced with.  Set the env var before first use of an
+   op.  (``jax.default_matmul_precision`` is part of jit's cache key, so a
+   context around the call does retrace.)
 """
 
 from __future__ import annotations
@@ -62,31 +71,3 @@ def value_prec(operand_dtype):
     if jax.config.jax_default_matmul_precision is not None:
         return None  # respect the user's global choice
     return jax.lax.Precision.HIGHEST
-
-
-def batched_value_prec(operand_dtype):
-    """Precision for the EXPLICIT batched-evaluation GEMMs: HIGH (3 MXU
-    passes — the hardware's own Ah·Bh + Ah·Bl + Al·Bh split) instead of
-    HIGHEST (6 passes).
-
-    Measured same-process on v5e (rank-4 dim-100, B = 1024,
-    ``benchmarks/batched_f32_high_probe.py``, 2026-08-20): HIGH 0.60 ms at
-    normalized error 8.8e-6 vs the f64 oracle, HIGHEST 29.3 ms at 3.7e-7,
-    DEFAULT 0.45 ms at 2.1e-3, true-bf16 storage 0.54 ms at 2.0e-3.  HIGH
-    matches bf16 throughput with ~230× better accuracy; HIGHEST's 6-pass
-    lowering is pathologically slow on wide-batch GEMMs.
-
-    Scope: only ``poly_eval_flat_batched*`` uses this.  ``vmap`` of the
-    single-input op still carries HIGHEST (value_prec — the policy is read
-    at trace time, where the scalar path cannot know it is being vmapped),
-    as does everything else.  The same SYMTENSOR_VALUE_PRECISION /
-    jax_default_matmul_precision overrides apply."""
-    dt = jnp.dtype(operand_dtype)
-    if dt not in (jnp.dtype(jnp.float32), jnp.dtype(jnp.float64)):
-        return None
-    env = os.environ.get("SYMTENSOR_VALUE_PRECISION", "").lower()
-    if env in _ENV_MAP:
-        return _ENV_MAP[env]
-    if jax.config.jax_default_matmul_precision is not None:
-        return None  # respect the user's global choice
-    return jax.lax.Precision.HIGH

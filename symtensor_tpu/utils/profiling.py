@@ -4,7 +4,7 @@ The reference profiles offline with %timeit and warns on slow fallbacks
 (SURVEY.md §5). Here:
 
 - `timeit(fn, *args)` — block_until_ready timing harness for jitted ops.
-- `trace(path)` — context manager around jax.profiler for TPU traces.
+- `trace(path)` — context manager around jax.profiler for device traces.
 - `op_counters` — counters of kernel-vs-fallback dispatch; every densifying
   fallback in the library calls `count_fallback(...)` and warns (once per
   site) when config.warn_on_densify is set.

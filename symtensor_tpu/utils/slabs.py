@@ -21,9 +21,9 @@ In colex the operator is
 
     sl(j, i) = colex_rank(sort(j ∪ {i}))          (size k+1)
 
-The measured TPU gather rates (docs/benchmarks.md) make the *form* of
-this access the whole game: element gathers run at ~10-27M elements/s
-while contiguous runs move at DMA/HBM rate.  This module decomposes the
+On the previous accelerator the *form* of this access decided its cost:
+element gathers ran far below memory bandwidth while contiguous runs
+moved at full rate.  This module decomposes the
 (j, i) incidence set into **contiguous slabs**:
 
 - depth δ=0 (``i ≥ max(j)``): for fixed i, as j runs over the colex
@@ -426,7 +426,7 @@ def coverage(
 
     The fraction is the share of the gather that moves at DMA rate when
     the kernel slices runs of at least ``min_run`` elements; the
-    remainder stays on the measured-slow element-gather path.
+    remainder stays on the element-gather path.
     ``min_rows`` prunes the recursion: subblocks with fewer child rows
     are handed whole to the element-gather tail (their child AND parent
     ranges are contiguous, so the tail pass is range-restricted, not

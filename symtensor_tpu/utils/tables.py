@@ -2,9 +2,9 @@
 
 The reference builds per-(rank,dim) index→position dictionaries lazily on the
 host (``PosRegistry``, symtensor/permcls_symtensor.py:422) and walks Python
-generators in hot paths. On TPU everything combinatorial must be *static*:
-either closed-form arithmetic executed in jnp (positions), or precomputed
-int32 arrays living in HBM (gather maps). This module owns those arrays.
+generators in hot paths. On an accelerator everything combinatorial must be
+*static*: either closed-form arithmetic executed in jnp (positions), or
+precomputed int32 arrays living in device memory (gather maps). This module owns those arrays.
 
 All tables are cached by (rank, dim) — identical Python object identity on
 reuse, so jit tracing does not recompile.
@@ -138,10 +138,9 @@ class Tables:
 
     def position_jnp_T(self, sorted_idx_T: jnp.ndarray) -> jnp.ndarray:
         """position_jnp with the index components stacked on the LEADING
-        axis: (rank, ...) → (...,) int32.  TPU arrays tile their last two
-        dims to (sublane, 128-lane) blocks, so a (N, rank) index array
-        physically occupies ~128/rank× its logical size; the transposed
-        layout keeps the big axis on the lanes."""
+        axis: (rank, ...) → (...,) int32.  A tiled device layout pads a
+        (N, rank) index array's short minor axis; the transposed layout
+        keeps the big axis minor."""
         r, d = self.rank, self.dim
         idx = sorted_idx_T.astype(jnp.int32)
         if r == 1:
@@ -162,9 +161,8 @@ class Tables:
     @staticmethod
     def _binom_shift(x: jnp.ndarray, m: int) -> jnp.ndarray:
         """C(x + m - 1, m) as closed-form int32 arithmetic for small m —
-        replaces the per-element Pascal-table gathers on hot paths (every
-        element gather costs ~10-27 M el/s on this chip; the polynomial is
-        pure VPU).  Falls back to None for m >= 4 (callers then gather)."""
+        replaces the per-element Pascal-table gathers on hot paths (the
+        polynomial is pure elementwise arithmetic).  Falls back to None for m >= 4 (callers then gather)."""
         if m == 1:
             return x
         if m == 2:
@@ -181,7 +179,8 @@ class Tables:
 
         All head-rank Pascal terms use closed-form polynomials
         (`_binom_shift`), so the only memory op is the (dim,)-table
-        group_off gather; everything else is VPU arithmetic on (N,)."""
+        group_off gather; everything else is elementwise arithmetic on
+        (N,)."""
         r, d = self.rank, self.dim
         if r == 1:
             return jnp.zeros(rep_T.shape[1:], dtype=jnp.int32)
@@ -214,7 +213,7 @@ class Tables:
         merged multiset's head / group element / tail triangle are then
         known per case, so positions reduce to per-rep prefix sums (a few
         tiny Pascal gathers of (seg,)) plus ~2K masked multiply-add
-        planes over (seg, d) — all VPU.  The previous on-the-fly path
+        planes over (seg, d) — all elementwise.  The previous on-the-fly path
         sorted a (K, seg, d) stack and ranked it with K Pascal gathers
         *per element*, which dominated level-0 basis-change chunks."""
         K, d = self.rank, self.dim

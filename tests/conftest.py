@@ -1,5 +1,10 @@
 """Test configuration: force CPU with 8 virtual devices so sharding tests
-run without TPU hardware, and enable x64 so oracle comparisons can be tight.
+run without accelerator hardware (no test worker ever opens the GPU), enable
+x64 so oracle comparisons can be tight, and switch the persistent compile
+cache off so the suite writes no XLA:CPU executables into the checkout.
+
+The ``gpu`` marker (pyproject.toml) is registered for tests that can only
+run on the card; the GPU path itself is exercised by ``python chip_smoke.py``.
 """
 
 import os
@@ -13,6 +18,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_compilation_cache", False)
 
 import numpy as np
 import pytest
@@ -21,3 +27,4 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+

@@ -139,7 +139,7 @@ def test_basis_change_chunked_root_matches_generic(r, d, d_out, monkeypatch):
 
 
 def test_root_kernel_bf16_one_pass_close():
-    """bf16 storage routes the MXU products through one-pass bf16 operands
+    """bf16 storage routes the products through one-pass bf16 operands
     (f32 accumulation) instead of the 6-pass f32-HIGHEST decomposition —
     results must agree with the f64 oracle at bf16 noise level."""
     k, d, npar, b_lo = 4, 7, 3, 1
@@ -163,8 +163,8 @@ def test_root_kernel_bf16_one_pass_close():
 
 def test_basis_change_bf16_blocked_close():
     """Full blocked basis change with bf16 storage (the flagship config:
-    bf16 blocks, one-pass MXU, f32 accumulation) tracks the f64 result at
-    bf16 noise level."""
+    bf16 blocks, one-pass bf16 products, f32 accumulation) tracks the f64
+    result at bf16 noise level."""
     r, d, d_out = 5, 5, 6
     rng = np.random.default_rng(3)
     n = comb.indep_size(r, d)

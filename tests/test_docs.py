@@ -4,7 +4,7 @@ pytest, notebook-style (blocks of one file share a namespace, in order).
 The reference makes its docs executable by authoring every source file as
 a jupytext notebook built by Jupyter-Book (docs/_config.yml:96-99); here
 the prose stays markdown and this runner is the CI teeth — a broken doc
-snippet fails the suite (round-2 VERDICT item 10).
+snippet fails the suite.
 
 Blocks fenced as ```python noexec are skipped (none currently).
 """

@@ -1,10 +1,11 @@
 """Matmul-precision policy regression tests.
 
-Background: TPU's DEFAULT matmul precision truncates f32 MXU operands to
-bf16. Eager single-input contractions lower to VPU GEMVs (full f32), but
-``jit(vmap(contract_all_indices_with_vector))`` turns the same dots into
-MXU GEMMs — measured on v5e at rank-4 dim-20: eager rel err 1e-7 vs the
-f64 oracle, vmapped up to 1e-2, before value_prec() was threaded through.
+Background: on the GPU an f32 dot at DEFAULT precision may run in TF32
+(~1e-3 relative). Eager single-input contractions lower to GEMVs, but
+``jit(vmap(contract_all_indices_with_vector))`` and the explicit batched
+kernel turn the same dots into GEMMs, where that precision loss shows
+(measured on an H100 at rank-4 dim-100 B=1024: HIGH, which is TF32 there,
+gave normalized error 1.25e-4 against a float64 oracle, HIGHEST 3.0e-7).
 
 CPU executes every precision in full f32, so these tests assert the
 *policy* and the *lowered HLO*, not numerics: the vmapped program must
@@ -19,7 +20,7 @@ import pytest
 import symtensor_tpu as st
 from symtensor_tpu import symalg
 from symtensor_tpu.testing.utils import random_symmetric
-from symtensor_tpu.utils.precision import batched_value_prec, value_prec
+from symtensor_tpu.utils.precision import value_prec
 
 
 def _make(rank, dim, rng, dtype, fmt):
@@ -37,14 +38,17 @@ def test_policy_defaults(monkeypatch):
 
 
 def test_batched_policy_defaults(monkeypatch):
-    # explicit batched GEMMs default to HIGH (3 MXU passes): measured
-    # 0.60 ms at norm err 8.8e-6 vs HIGHEST's 29.3 ms at 3.7e-7 on v5e
-    # (benchmarks/batched_f32_high_probe.py)
+    # explicit batched GEMMs follow value_prec: HIGHEST for f32 (on an
+    # H100 at rank-4 dim-100 B=1024: 5.14 ms at normalized error 3.0e-7;
+    # HIGH is TF32 there, 1.25e-4), DEFAULT for bf16 operands
+    import symtensor_tpu.kernels.poly_eval as pe
+
     monkeypatch.delenv("SYMTENSOR_VALUE_PRECISION", raising=False)
-    assert batched_value_prec(jnp.float32) == jax.lax.Precision.HIGH
-    assert batched_value_prec(jnp.bfloat16) is None
-    monkeypatch.setenv("SYMTENSOR_VALUE_PRECISION", "highest")
-    assert batched_value_prec(jnp.float32) == jax.lax.Precision.HIGHEST
+    assert pe.value_prec is value_prec
+    assert value_prec(jnp.float32) == jax.lax.Precision.HIGHEST
+    assert value_prec(jnp.bfloat16) is None
+    monkeypatch.setenv("SYMTENSOR_VALUE_PRECISION", "high")
+    assert value_prec(jnp.float32) == jax.lax.Precision.HIGH
 
 
 def test_policy_env_override(monkeypatch):
@@ -94,18 +98,33 @@ def test_vmapped_eval_hlo_carries_highest(fmt, rng):
 
 
 def test_batched_kernel_hlo_carries_high(rng):
-    """The explicit batched kernel's dots carry HIGH (the batched policy;
-    see batched_value_prec) — never DEFAULT, which would bf16-truncate."""
+    """The explicit batched kernel's dots carry HIGHEST (value_prec) —
+    never DEFAULT, which may run f32 operands in TF32 on the GPU."""
     from symtensor_tpu.kernels.poly_eval import poly_eval_flat_batched
 
     r, d = 4, 6
     A = _make(r, d, rng, jnp.float32, "flat")
     xs = jnp.asarray(rng.normal(size=(8, d)), dtype=jnp.float32)
     hlo = jax.jit(lambda xb: poly_eval_flat_batched(A, xb)).lower(xs).as_text()
-    dot_lines = [ln for ln in hlo.splitlines() if "dot_general" in ln]
-    assert dot_lines, "no dot_general ops found in lowered program"
-    for line in dot_lines:
-        assert "HIGH" in line, line  # HIGH or HIGHEST; bare dots forbidden
+    _assert_all_dots_highest(hlo)
+
+
+def test_sharded_batched_eval_hlo_carries_highest(rng):
+    """The dp×tp colex evaluation's dots (forward and gradient) carry
+    HIGHEST like the one-device path; at DEFAULT the GPU may run them in
+    TF32."""
+    from symtensor_tpu import parallel
+
+    mesh = parallel.make_mesh((2, 2), ("dp", "tp"))
+    r, d = 3, 5
+    A = _make(r, d, rng, jnp.float32, "flat")
+    xs = jnp.asarray(rng.normal(size=(4, d)), dtype=jnp.float32)
+    f = jax.jit(jax.grad(
+        lambda data: parallel.poly_eval_batched_sharded(
+            st.FlatSymmetricTensor._raw(r, d, data), xs, mesh
+        ).sum()
+    ))
+    _assert_all_dots_highest(f.lower(A.data).as_text())
 
 
 def test_vmapped_matches_eager(rng):

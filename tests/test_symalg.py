@@ -486,7 +486,7 @@ def test_basis_change_inflight_throttle(rng, monkeypatch):
 @pytest.mark.parametrize("max_segs", [1, 2, 5])
 def test_basis_change_column_windowing(rng, max_segs, monkeypatch):
     """Host-level column windowing of long step kernels (the rank-6 t=0
-    worker-crash fix) must be exact: windows slice the child-column
+    root pass runs as several window programs) must be exact: windows slice the child-column
     axis, positions stay absolute, outputs reassemble npar-major."""
     from symtensor_tpu.ops.basis_change import basis_change_packed
 
@@ -608,7 +608,7 @@ def test_basis_change_blocked_budget_sweep(rng, block_elems, transient_elems):
 )
 def test_tensordot_streamed_matches(ra, rb, k, dim, rng):
     """The blocked streaming path (used past the table guard) must agree
-    with the table path and the dense oracle (VERDICT round-1 item 3: the
+    with the table path and the dense oracle (the
     guard used to raise MemoryError with no path behind it)."""
     from symtensor_tpu.ops.outer import symmetric_outer
 

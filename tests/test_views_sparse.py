@@ -154,7 +154,11 @@ def test_sparse_arithmetic(rng):
         np.asarray(m.todense()), 3 * dense_a, atol=1e-12
     )
     assert isinstance(-Sa, st.SparseFlatSymmetricTensor)
-    # non-closed ops expand with a storage-densify fallback
+    # non-closed ops expand with a storage-densify fallback; the warning
+    # is once per site per process, so forget sites other tests hit first
+    from symtensor_tpu.utils import profiling
+
+    profiling.reset_counters()
     with pytest.warns(UserWarning):
         p = Sa * Sb
     np.testing.assert_allclose(
